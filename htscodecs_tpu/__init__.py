@@ -1,4 +1,4 @@
-"""htscodecs_tpu — TPU-native CRAM entropy-codec engine.
+"""htscodecs_tpu — batched CRAM entropy-codec engine in JAX.
 
 A from-scratch JAX/Pallas rebuild of the htscodecs codec family
 (reference: jkbonfield/htscodecs v1.1) producing bitstream-identical
@@ -14,8 +14,9 @@ output:
 
 Architecture: host-side framing and table construction in C/NumPy,
 hot entropy loops in native host kernels for single-block work and in
-batched JAX/XLA engines (ops/rans_v2.py, ops/rans8_v2.py,
-ops/arith_jax.py) for TPU-scale throughput across thousands of
+batched device engines (the GPU kernel of ops/rans_gpu.py, the XLA
+scans of ops/rans_v2.py, ops/rans8_v2.py, ops/arith_jax.py) for
+throughput across thousands of
 independent blocks, grouped by ``models.batch`` and sharded over
 device meshes via ``htscodecs_tpu.parallel``.
 """

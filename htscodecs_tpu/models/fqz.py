@@ -13,7 +13,7 @@ stream, so encoder equality requires replaying those heuristics
 bit-for-bit.
 
 Throughput note: the per-byte model scan is inherently sequential; the
-TPU engine batches across blocks (see parallel/) rather than splitting
+batch layer parallelises across blocks (see parallel/) rather than splitting
 within one.
 """
 
@@ -1108,65 +1108,6 @@ def compress(data, lens, flags=None, vers: int = 4, strat: int = 0,
             caller_flags[r] &= 0xFFFF
 
     return bytes(out) + rc.finish()
-
-
-def compress_batch_device(jobs, vers: int = 4,
-                          **kernel_kw) -> list[bytes] | None:
-    """Batched fqz encode through the device range coder.
-
-    The serial per-byte work splits in two (reference loop:
-    fqzcomp_qual.c:1040-1113): the context/model walk replays on the
-    host emitting (acc, f, tot) triples (native fqz_enc_replay — the
-    65536-context model arena is a 17-68 MB pointer-chase that cannot
-    live in VMEM), and the carry-counting range-coder chain runs in
-    the Pallas VMEM kernel with 128 blocks per tile (ops/rc_vmem).
-    Streams are byte-identical to ``compress()`` per job.  Returns
-    None when any job can't take this path (caller falls back)."""
-    if not (_USE_NATIVE and _native.available()):
-        return None
-    from ..ops import rans_v2, rc_vmem
-    if not rans_v2._vmem_engine_ok():
-        return None
-    heads, tris, callers = [], [], []
-    for job in jobs:
-        data, lens, *rest = job
-        flags = rest[0] if len(rest) > 0 else None
-        strat = rest[1] if len(rest) > 1 else 0
-        data = (np.frombuffer(bytes(data), dtype=np.uint8).copy()
-                if not isinstance(data, np.ndarray) else data.copy())
-        in_size = len(data)
-        caller_flags = flags if isinstance(flags, list) else None
-        lens = list(lens)
-        flags = list(flags) if flags is not None else [0] * len(lens)
-        gp = pick_parameters(vers, strat, lens, flags, data)
-        out = bytearray()
-        varint.put_uint(out, in_size)
-        out += store_parameters(gp)
-        if gp.gflags & GFLAG_DO_REV:
-            i = 0
-            rec = 0
-            while i < in_size:
-                ln = lens[rec] if rec < len(lens) - 1 else in_size - i
-                if flags[rec] & FQZ_FREVERSE:
-                    data[i:i + ln] = data[i:i + ln][::-1]
-                i += ln
-                rec += 1
-        tri = _native.fqz_enc_replay(
-            data, np.asarray(lens, np.uint32),
-            np.asarray(flags, np.uint32), gp, _pack_gp(gp))
-        if tri is None:
-            return None
-        heads.append(bytes(out))
-        tris.append(tri)
-        callers.append(caller_flags)
-    payloads = rc_vmem.enc_triples_batch(tris, **kernel_kw)
-    if payloads is None:
-        return None
-    for caller_flags in callers:
-        if caller_flags is not None:
-            for r in range(len(caller_flags)):
-                caller_flags[r] &= 0xFFFF
-    return [h + p for h, p in zip(heads, payloads)]
 
 
 def decompress(buf, with_lengths: bool = False):

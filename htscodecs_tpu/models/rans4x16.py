@@ -8,8 +8,8 @@ order byte (bit0 order-1, 0x08 stripe, 0x10 no-size, 0x20 cat,
 size unless NOSZ, transform metadata, then the rANS payload.
 
 This module is host-side framing; the per-block entropy loops live in
-ops/rans_core.py (oracle), the native host kernels, and ops/rans_jax.py
-(batched TPU engine).
+ops/rans_core.py (oracle), the native host kernels, and the batched
+device engines (ops/rans_gpu.py, ops/rans_v2.py).
 """
 
 from __future__ import annotations

@@ -130,9 +130,6 @@ def _get_lib_locked():
     _sig(lib.fqz_dec, i64,
          [u8p, i64, i64, c_int, c_int, c_int, c_int, u8p,
           u32p, u32p, u32p, u32p, u32p, u8p, u32p, u8p, i64])
-    _sig(lib.fqz_enc_replay, i64,
-         [u8p, i64, u32p, u32p, i64, c_int, c_int, c_int, c_int, u8p,
-          u32p, u32p, u32p, u32p, u32p, u16p, u16p, u16p, i64])
     _lib = lib
     return _lib if _lib is not False else None
 
@@ -228,37 +225,6 @@ def fqz_enc_scan(data, lens, flags, gp, packed) -> bytes | None:
         _u32p(pm_ints), _u32p(qmaps), _u32p(qtabs), _u32p(ptabs), _u32p(dtabs),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
     return out[:r].tobytes() if r >= 0 else None
-
-
-def fqz_enc_replay(data, lens, flags, gp, packed):
-    """Model-replay pass: per-event (acc, f, tot) u16 triples in exact
-    stream order (sel/len/rev/dup record events included), no range
-    coder — feeds the device RC kernel (ops/rc_vmem.py).  Returns
-    (acc, f, tot) arrays trimmed to the event count, or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    pm_ints, qmaps, qtabs, ptabs, dtabs, stab = packed
-    a, ap = _u8(data)
-    lens32 = np.ascontiguousarray(lens, np.uint32)
-    flags32 = np.ascontiguousarray(flags, np.uint32)
-    cap_ev = int(len(a) + 7 * len(lens32) + 16)
-    acc = np.empty(cap_ev, np.uint16)
-    f = np.empty(cap_ev, np.uint16)
-    tot = np.empty(cap_ev, np.uint16)
-    u16p = ctypes.POINTER(ctypes.c_uint16)
-    r = lib.fqz_enc_replay(
-        ap, len(a), _u32p(lens32), _u32p(flags32), len(lens32),
-        gp.gflags, gp.nparam, gp.max_sel, gp.max_sym,
-        np.ascontiguousarray(stab, np.uint8).ctypes.data_as(
-            ctypes.POINTER(ctypes.c_uint8)),
-        _u32p(pm_ints), _u32p(qmaps), _u32p(qtabs), _u32p(ptabs),
-        _u32p(dtabs),
-        acc.ctypes.data_as(u16p), f.ctypes.data_as(u16p),
-        tot.ctypes.data_as(u16p), cap_ev)
-    if r < 0:
-        return None
-    return acc[:r], f[:r], tot[:r]
 
 
 def fqz_dec_scan(blob, total, gp, packed):

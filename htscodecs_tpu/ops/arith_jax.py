@@ -1,12 +1,12 @@
-"""Batched adaptive range-coder engines for TPU (JAX/XLA).
+"""Batched adaptive range-coder engines (JAX/XLA scans).
 
 The arith_dynamic codec is a strictly sequential adaptive coder
 (reference: htscodecs/c_range_coder.h:46-127 and
 htscodecs/c_simple_model.h:85-179): every byte updates the model the
 next byte is coded with, so there is no intra-block parallelism.  The
-TPU formulation therefore batches B independent blocks and advances
-one byte of every block per scan sub-step, with all model operations
-expressed as fused VPU passes over the model's M-entry tables:
+formulation therefore batches B independent blocks and advances one
+byte of every block per scan sub-step, with all model operations
+expressed as fused elementwise passes over the model's M-entry tables:
 
 - symbol search / cumulative frequency: compare + masked sums over M
   (the C linear scan's *result*, reproduced exactly — position, cum
@@ -27,7 +27,7 @@ Model size M is the padded max-symbol of the batch (the C model is
 NSYM=256 wide, but entries past max_sym keep frequency 0 and by
 induction never move into the active prefix, so only M entries exist
 on device).  The scan body is unrolled U bytes per step to amortise
-the ~20 us/step XLA loop overhead.
+the per-step XLA loop overhead.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ range / code, TOP = 1<<24, deferred-carry emission through a cache byte
 plus a run of 0xFF placeholders.  The first emitted byte is always the
 initial (zero) cache; decoders prime with five bytes.
 
-This coder is inherently sequential per stream — the TPU engine
+This coder is inherently sequential per stream — the device engine
 parallelises across blocks, not within them (see ops/arith_jax.py).
 """
 

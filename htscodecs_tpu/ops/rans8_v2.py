@@ -1,4 +1,4 @@
-"""Batched rANS 4x8 engines for TPU (CRAM 3.0), dense-alphabet form.
+"""Batched rANS 4x8 XLA engines (CRAM 3.0), dense-alphabet form.
 
 Same design as the 4x16 engines (ops/rans_v2.py) with the rANS_byte.h
 parameters (reference: htscodecs/rANS_byte.h:62,281-315,439-457):
@@ -191,8 +191,7 @@ def enc_o1_batch(blocks: np.ndarray, alpha, packed):
 def _dec_scan8(X0, chunks, packed, K: int, q: int, order: int,
                win: str = "coarse", row_fetch: str = "onehot"):
     """Byte-renorm decode scan, TRANSPOSED layout (lanes/alphabet
-    major, block axis B minor — see rans_v2._dec_scan_impl; the old
-    (B,4[,A]) form padded its tiny minor dims to 128 VPU lanes).
+    major, block axis B minor — see rans_v2._dec_scan_impl).
     Returns dense symbols (KO*R, 4, B) u8 and final states (4, B).
 
     ``win`` mirrors rans_v2's window variants (byte-exact): 'coarse'
@@ -376,15 +375,6 @@ def _chunkify8(stream_bytes: np.ndarray) -> np.ndarray:
     return out.reshape(B * NC, CHUNK)
 
 
-def _route8_vmem(A: int, n_bytes: int) -> bool:
-    rf = rans_v2._DEC_VARIANT["row_fetch"]
-    if rf == "vmem":
-        return True
-    from . import rans8_vmem
-    return (rf == "auto" and rans_v2._vmem_engine_ok()
-            and rans8_vmem.fits(A, n_bytes))
-
-
 def dec_o0_batch(states, stream, out_sz: int, alpha, packed):
     """states (B,4) u32; stream (B,W) u8 (bytes after the 16 state
     bytes); dense tables as in rans_v2.  Returns (B, out_sz) u8.
@@ -395,10 +385,6 @@ def dec_o0_batch(states, stream, out_sz: int, alpha, packed):
     if out_sz < 4:
         raise ValueError("dec_o0_batch requires out_sz >= 4; "
                          "route short blocks to the host decoder")
-    if _route8_vmem(packed.shape[1], stream.shape[1]):
-        from . import rans8_vmem
-        return rans8_vmem.dec_o0_batch(states, stream, out_sz, alpha,
-                                       packed)
     q = out_sz >> 2
     K = max(q, 1)
     out = _dec8_to_bytes(
@@ -410,10 +396,6 @@ def dec_o0_batch(states, stream, out_sz: int, alpha, packed):
 
 
 def dec_o1_batch(states, stream, out_sz: int, alpha, packed):
-    if _route8_vmem(packed.shape[1], stream.shape[1]):
-        from . import rans8_vmem
-        return rans8_vmem.dec_o1_batch(states, stream, out_sz, alpha,
-                                       packed)
     q = out_sz >> 2
     K = q + (out_sz - 4 * q)
     out = _dec8_to_bytes(

@@ -1,10 +1,8 @@
 """Batched rANS 4x16 engines, v1 (gather-based) — TEST ORACLE.
 
 Superseded on every production path by the dense-alphabet v2 engines
-(ops/rans_v2.py); wide alphabets (A > 96) route to the native scalar
-coder, which outperforms these gather-based scans on TPU (measured
-~20 ns/element for arbitrary 2D gathers, docs/PERF_NOTES.md).  This
-module is kept as an independent third implementation for the
+(ops/rans_v2.py, ops/rans_gpu.py); wide alphabets (A > 96) route to
+the native scalar coder.  This module is kept as an independent third implementation for the
 engine x vector conformance matrix (tests/test_oracle_matrix.py,
 tests/test_rans_jax.py).
 """
